@@ -1,6 +1,6 @@
 """2-bit packed target encoding, vectorized over numpy uint64 arrays.
 
-TPU-native re-design of the reference's scalar BitEncoding
+Vectorized re-design of the reference's scalar BitEncoding
 (reference: src/main/scala/bitcoding/BitEncoding.scala). Layout is kept
 bit-identical so that counts, masks and text output match:
 
@@ -11,7 +11,7 @@ bit-identical so that counts, masks and text output match:
     (BitEncoding.scala:127-132).
 
 Everything here operates on numpy arrays (host side). The device-side scan
-uses a different, MXU-friendly one-hot representation built from these packed
+uses a different, matmul-friendly one-hot representation built from these packed
 values (see flashfry_tpu.ops.scan).
 """
 
@@ -209,7 +209,7 @@ class BitEncoding:
                          additional_mask=STRING_MASK) -> np.ndarray:
         """(G, T) mismatch-count matrix: every guide against every target.
 
-        Host-side (numpy) reference for the TPU scan kernel. Computed in row
+        Host-side (numpy) reference for the device scan. Computed in row
         blocks with in-place ops and two reusable scratch buffers — fresh
         multi-hundred-MB temporaries are pathologically slow in sandboxed
         environments with expensive first-touch page faults.

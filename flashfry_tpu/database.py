@@ -1,10 +1,10 @@
 """Off-target database: construction, on-disk format, loading.
 
-TPU-native re-expression of the reference's binned binary database
+Columnar re-expression of the reference's binned binary database
 (reference: src/main/scala/reference/binary/DatabaseWriter.scala:58-111,
 BlockReader.scala:87-135, BinaryHeader.scala:69-160). Instead of BGZF blocks
 with interleaved linear/indexed layouts, we store flat columnar arrays that
-can be uploaded to TPU HBM directly:
+can be uploaded to device memory directly:
 
   targets      uint64[N]   count<<48 | packed bases, in global scan order
   positions    uint64[M]   packed genomic positions (BitPosition layout)
@@ -229,9 +229,14 @@ def _memmap_npz_members(path: str) -> Optional[Dict[str, np.ndarray]]:
             extra_len = int.from_bytes(lh[28:30], "little")
             data_off = info.header_offset + 30 + name_len + extra_len
             fh.seek(data_off)
+            fmt = np.lib.format
             try:
-                version = np.lib.format.read_magic(fh)
-                shape, fortran, dtype = np.lib.format._read_array_header(fh, version)
+                version = fmt.read_magic(fh)
+                read_header = {(1, 0): fmt.read_array_header_1_0,
+                               (2, 0): fmt.read_array_header_2_0}.get(version)
+                if read_header is None:
+                    return None
+                shape, fortran, dtype = read_header(fh)
             except (ValueError, KeyError):
                 return None
             if fortran or dtype.hasobject:

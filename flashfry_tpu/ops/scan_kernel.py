@@ -1,24 +1,23 @@
-"""Fused Pallas TPU kernel for the off-target scan (stage 1).
+"""Fused stage-1 kernel for the off-target scan, written for Hopper GPUs.
 
-For each tile of targets this kernel widens plane-major base codes to the
-one-hot expansion in VMEM, multiplies against the guide one-hot matrix on the
-MXU at int8 (394 TOPS on v5e, 2x bf16), thresholds match counts and reduces
-to a per-target "any guide hits" byte. Only 1 byte/target leaves the kernel —
-the (G, N) mismatch matrix never touches HBM.
-
-Layout (measured on v5e; see tools/profile_scan.py): everything is
-lane-major. The database is stored as PLANE-MAJOR base codes — a (32, N)
-int8 array whose row i holds base i of every target — so the one-hot
-construction is a sublane 4x repeat + compare instead of per-lane variable
-bit shifts, and every DMA moves full 128-lane rows. The previous
-(N, 1)-column layout spent 17 ms/chunk on degenerate DMA alone; this layout
-runs the whole kernel in ~11 ms per 8M-target chunk (7.8e11 cmp/s).
+Pallas through Triton (``backend="triton"``). Each program owns a tile of
+T_TILE targets: it loads that tile's (32, T) int8 plane codes, builds the
+(128, T) one-hot in registers, then walks the guide matrix G_TILE rows at a
+time. Every step is an int8 ``pl.dot`` with int32 accumulation whose
+(G_TILE, T) match tile is reduced at once to a running per-target max, so
+the (G, N) match matrix never reaches device memory: a program reads
+33 B per target plus the guide rows (served from L2) and writes 1 B.
 
 Per-guide thresholds are unnecessary: all real guides of an enzyme share
 |active| (the PAM-masked base count), so "mismatches <= k" is the scalar
-compare "matches >= |active| - k", baked in at trace time. Guide padding
+compare "max_g matches >= |active| - k", fixed at trace time. Guide padding
 rows are all-zero (0 matches) and the threshold is clamped >= 1, so padding
-never fires.
+never fires; padding target columns hold PAD_CODE, whose one-hot is
+all-zero.
+
+Blocks run in parallel in no order, so nothing carries from one program to
+the next; the guide loop inside the program takes the place of a sequential
+grid axis.
 
 This replaces the reference's scalar inner loop
 (reference/binary/blocks/BlockManager.scala:225-253) and realizes the
@@ -33,37 +32,36 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-T_TILE = 4096  # re-probed round 5 at G=2048: 2048/4096/8192/16384 are flat
-               # within 1% (1.07-1.11e12 cmp/s), so 4096 stays; the kernel
-               # reaches 1.10e12 cmp/s at G=2048 vs 1.01e12 at G=1024
-               # (better M-dim amortization — part of the 2048-block win)
+# Tile shape: the fastest of a sweep over T_TILE 128-512, G_TILE 64/128,
+# 4/8 warps and 2/3 pipeline stages on an H100 80GB HBM3 (400 W limit);
+# PERF.md has the numbers. A one-hot built in registers per dot (rather
+# than four K=32 dots, one per base) was faster at every shape.
+T_TILE = 128    # targets per program (power of two; the chunk is a multiple)
+G_TILE = 128    # guide rows per inner step
+NUM_WARPS = 4   # one warpgroup
+NUM_STAGES = 3  # software-pipelining depth of the guide loop
 OH_ROWS = 128   # one-hot width: 4*L <= 96 for all enzymes, padded to 128
-CODE_ROWS = 32  # plane-major code rows (L <= 24, padded to the int8 sublane tile)
+CODE_ROWS = 32  # plane-major code rows (L <= 24)
 
 
-def _stage1_kernel(thr: int, code_ref, guide_ref, out_ref):
-    # One-hot in BLOCK layout: row b*32+i = (base i == b). Four scalar
-    # compares over the (32, T) code planes — no sublane repeat, no iota —
-    # measured 1.27x faster than the interleaved 4i+b layout (the repeat +
-    # (128, T) iota compare cost ~2.3 ms per 8M chunk; tools/experiment_
-    # stage1.py). The guide matrix is column-permuted to match
-    # (guide_block_layout below). Rows with i >= L: codes are 0 there, so
-    # the b=0 block is all-ones — harmless, the matching guide columns are
-    # zero-padded.
-    codes = code_ref[:].astype(jnp.int32)            # (32, T)
-    t_oh = jnp.concatenate(
-        [(codes == b).astype(jnp.int8) for b in range(4)], axis=0)  # (128, T)
-    matches = jnp.dot(guide_ref[:], t_oh, preferred_element_type=jnp.int32)  # (G, T)
-    # scalar threshold: any(mm <= k) == max_g(matches) >= |active| - k, which
-    # saves a whole (G, T) compare pass vs thresholding before reducing
-    # NOTE: emitting per-tile hit counts from this kernel was tried and
-    # abandoned: Mosaic rejects sub-128-lane dynamic stores ("cannot
-    # statically prove index is a multiple of 128") and a (1, T)x(T, k)
-    # indicator matmul wastes 127/128 of the MXU on the M=1 row — both
-    # cost more than the ~1.2 ms/chunk count pass they would save.
-    out_ref[:] = (jnp.max(matches, axis=0, keepdims=True) >= thr).astype(jnp.int8)
+def _stage1_kernel(thr: int, n_steps: int, code_ref, guide_ref, out_ref):
+    # One-hot in BLOCK layout: row b*32+i = (base i == b). Rows with i >= L
+    # hold code 0, so their b=0 rows are all-ones — harmless, the matching
+    # guide columns are zero (guide_block_layout).
+    codes = code_ref[...].astype(jnp.int32)                       # (32, T)
+    t = codes.shape[1]
+    b = jax.lax.broadcasted_iota(jnp.int32, (4, CODE_ROWS, t), 0)
+    t_oh = (codes[None] == b).astype(jnp.int8).reshape(OH_ROWS, t)
+
+    def step(k, best):
+        g = guide_ref[pl.ds(k * G_TILE, G_TILE), :]               # (Gt, 128)
+        m = pl.dot(g, t_oh)                                       # (Gt, T) i32
+        return jnp.maximum(best, jnp.max(m, axis=0))
+
+    best = jax.lax.fori_loop(0, n_steps, step, jnp.zeros((t,), jnp.int32))
+    out_ref[...] = (best >= thr).astype(jnp.int8)
 
 
 def guide_block_layout(guide_oh, L: int):
@@ -76,31 +74,40 @@ def guide_block_layout(guide_oh, L: int):
 
 
 @functools.lru_cache(maxsize=8)
-def stage1_pallas(n_active: int, max_mm: int, chunk: int, g_rows: int):
-    """Returns jitted (codes (32, chunk) int8, guide_i8 (g_rows, 128) int8)
-    -> (chunk,) bool, signature-compatible with the jnp stage 1 in ops.scan."""
-    assert chunk % T_TILE == 0
+def stage1_pallas(n_active: int, max_mm: int, n_cols: int, g_rows: int,
+                  interpret: bool = False):
+    """Returns (codes (32, n_cols) int8, guide_i8 (g_rows, 128) int8) ->
+    (n_cols,) bool: does any guide row reach the threshold at each target.
+    n_cols must be a T_TILE multiple and g_rows a G_TILE multiple.
+    interpret=True runs the same kernel on the CPU (tests)."""
+    if n_cols % T_TILE or g_rows % G_TILE:
+        raise ValueError("stage1_pallas needs n_cols %% %d == 0 and "
+                         "g_rows %% %d == 0, got %d, %d"
+                         % (T_TILE, G_TILE, n_cols, g_rows))
     thr = max(n_active - max_mm, 1)
-    kernel = functools.partial(_stage1_kernel, thr)
-
+    kernel = functools.partial(_stage1_kernel, thr, g_rows // G_TILE)
     call = pl.pallas_call(
         kernel,
-        grid=(chunk // T_TILE,),
+        grid=(n_cols // T_TILE,),
         in_specs=[
-            pl.BlockSpec((CODE_ROWS, T_TILE), lambda t: (0, t), memory_space=pltpu.VMEM),
-            pl.BlockSpec((g_rows, OH_ROWS), lambda t: (0, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((CODE_ROWS, T_TILE), lambda t: (0, t)),
+            pl.BlockSpec((g_rows, OH_ROWS), lambda t: (0, 0)),
         ],
-        out_specs=pl.BlockSpec((1, T_TILE), lambda t: (0, t), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((1, chunk), jnp.int8),
+        out_specs=pl.BlockSpec((T_TILE,), lambda t: (t,)),
+        out_shape=jax.ShapeDtypeStruct((n_cols,), jnp.int8),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                    num_stages=NUM_STAGES),
+        interpret=interpret,
+        name="flashfry_stage1",
         cost_estimate=pl.CostEstimate(
-            flops=2 * chunk * OH_ROWS * g_rows,
-            bytes_accessed=chunk * (CODE_ROWS + 1) + OH_ROWS * g_rows,
+            flops=2 * n_cols * OH_ROWS * g_rows,
+            bytes_accessed=n_cols * (CODE_ROWS + 1) + OH_ROWS * g_rows,
             transcendentals=0,
         ),
     )
 
-    @jax.jit
     def f(codes, guide_i8):
-        return call(codes, guide_i8).reshape(chunk) > 0
+        return call(codes, guide_i8) > 0
 
     return f

@@ -1,7 +1,7 @@
 """Multi-host (multi-process) discover execution.
 
 The reference is a single JVM (SURVEY.md §5.8); this module supplies the
-missing scale-out axis, TPU-native via ``jax.distributed``:
+missing scale-out axis, via ``jax.distributed``:
 
   * axis mapping — the **"db" mesh axis spans hosts**: each process builds
     and uploads ONLY its local slab of the plane-major code database, read
@@ -10,7 +10,7 @@ missing scale-out axis, TPU-native via ``jax.distributed``:
     every host). The only cross-host ("DCN") traffic on this axis is the
     fixed-size triplet buffers, a few hundred KB per guide block. The
     **"guides" axis stays within a host** so the data-parallel one-hot
-    blocks and the stage-1 matmuls ride ICI, never DCN.
+    blocks and the stage-1 matmuls stay on the host's own interconnect.
   * every process runs the same SPMD program (shard_map over the global
     mesh); XLA inserts the collectives;
   * per-process results are exchanged with one
@@ -24,7 +24,6 @@ missing scale-out axis, TPU-native via ``jax.distributed``:
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import numpy as np
@@ -139,11 +138,6 @@ def run_worker(coordinator_address: str, num_processes: int, process_id: int,
         "DCN allgather: %d bytes over %d calls (%d hit rows)",
         scanner.dcn_allgather_bytes, scanner.dcn_allgather_calls,
         hits.shape[0])
-    if os.environ.get("FLASHFRY_TPU_DCN_LOG"):
-        # machine-parseable line for tools/multihost_model.py only
-        print("DCN_ALLGATHER bytes=%d calls=%d hits=%d"
-              % (scanner.dcn_allgather_bytes, scanner.dcn_allgather_calls,
-                 hits.shape[0]), flush=True)
     if out_path and jax.process_index() == 0:
         np.savez(out_path, hits=hits)
     return hits

@@ -1,4 +1,4 @@
-"""Device-side (TPU) mismatch-descriptor extraction for OT scoring.
+"""Device-side mismatch-descriptor extraction for OT scoring.
 
 The scoring layer's device backend (SURVEY §7.5 "scoring become vectorized
 JAX over the collected off-target sets"): the chip does ALL the integer
@@ -10,12 +10,11 @@ descriptors into scores with O(#mismatches) exact f64 table gathers
 (scoring/otbatch.py). Device traffic is 12 B/OT up (packed words + guide
 index) and 8 B/OT down.
 
-Why not score on device outright: TPU float64 is software-emulated and NOT
-correctly rounded — a 20-factor f64 product chain measured up to 197 ulp
-off the IEEE sequential product (round-4 negative result) — while the
-formatted output contract needs the exact last ulp (javafmt). Integer
-compare/compact is exact on any backend, so the split keeps byte parity
-while moving the O(N·L) work onto the chip.
+Why not score on device outright: the formatted output contract needs the
+exact last ulp of the oracle's sequential f64 product (javafmt), and
+device-side f64 products have not been shown to reproduce it bit for bit.
+Integer compare/compact is exact on any backend, so the split keeps byte
+parity while moving the O(N·L) work onto the device.
 
 Word layout (consumed by otbatch.unpack_descriptors):
   w0: d0|d1|d2 (9 bits each: pos<<4|g<<2|o, ascending position) |

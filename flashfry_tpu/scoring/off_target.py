@@ -6,7 +6,7 @@ scoring/CrisprMitEduOffTarget.scala and scoring/JostAndSantosCRISPRi.scala.
 Coefficient tables are the published model parameters, extracted to JSON in
 scoring/data/.
 
-TPU-first formulation: each model's per-position lookup becomes a dense
+Table formulation: each model's per-position lookup becomes a dense
 (guide-base, ot-base, position) float table, and a guide's whole OT set is
 scored with one gather + row-product over its columnar code matrix — the
 reference walks each OT string character by character

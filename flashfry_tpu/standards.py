@@ -1,6 +1,6 @@
 """Enzyme parameter packs.
 
-TPU-native re-design of the reference's enzyme definitions
+Declarative re-design of the reference's enzyme definitions
 (reference: src/main/scala/standards/StandardScanParameters.scala:28-215 and
 src/main/scala/standards/Enzyme.scala). Each pack carries the PAM set, scan
 length, 5'/3' PAM orientation, the 48-bit comparison mask that excludes PAM

@@ -6,7 +6,7 @@ rendering (:132-154) and the OT token grammar
 crispr/CRISPRHit.scala:54-88). The parser accepts our own output (and the
 reference's), reconstructing guide + off-target state for the score module.
 
-TPU-first data model: a guide's off-target set is stored **columnar** —
+Columnar data model: a guide's off-target set is stored **columnar** —
 one packed-uint64 array of OT sequences, one CSR array of genomic
 coordinates — so scoring and rendering are numpy table operations instead
 of per-hit Python loops (the reference walks ArrayBuffer[CRISPRHit]

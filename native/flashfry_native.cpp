@@ -1,6 +1,6 @@
 // Native host-side kernels for flashfry_tpu.
 //
-// The TPU owns the mismatch scan; these routines cover the serial host work
+// The device owns the mismatch scan; these routines cover the serial host work
 // around it — genome site scanning, window packing and count merging — which
 // the reference does with JVM regexes and sorts (ReferenceEncoder.scala,
 // BlockReader.scala). Compiled on demand via g++ and loaded with ctypes

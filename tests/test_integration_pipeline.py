@@ -30,7 +30,7 @@ def run(args, platform=None):
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT
     if platform:
-        env["FLASHFRY_TPU_PLATFORM"] = platform
+        env["JAX_PLATFORMS"] = platform
         flags = env.get("XLA_FLAGS", "")
         if "xla_force_host_platform_device_count" not in flags:
             env["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()

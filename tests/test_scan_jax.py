@@ -1,4 +1,10 @@
-"""JAX scan backend must agree exactly with the numpy XOR+popcount oracle."""
+"""JAX scan backend must agree exactly with the numpy XOR+popcount oracle.
+
+Every comparison here is exact equality: scan results are integers (int8
+products accumulate in int32; bf16 products of 0/1 operands accumulate in
+float32, exact for sums <= 24), so no tolerance applies at any matmul
+precision setting.
+"""
 
 import numpy as np
 import pytest
@@ -107,25 +113,232 @@ def test_stage2_cap_overflow_falls_back():
         assert sorted(got.get(g, [])) == [(int(t), int(expect_mm[g, t])) for t in t_hits]
 
 
-def test_pallas_kernel_interpret_mode():
-    """Run the fused kernel in interpreter mode on CPU and compare."""
-    import jax
-    from jax.experimental.pallas import tpu as pltpu
-
+@pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack])
+def test_pallas_kernel_interpret_mode(pack):
+    """The whole fused scan with the stage-1 kernel (interpreted on the CPU)
+    must yield exactly the plain jnp stage 1's triplets, in order."""
     genome = random_genome(20000, seed=24)
-    db = build_db(genome, Cas9NGGParameterPack)
-    gsites = find_target_sites(iter([("g", genome[500:800])]), Cas9NGGParameterPack)
-    if len(gsites) == 0:
-        pytest.skip("no guides")
+    db = build_db(genome, pack)
+    gsites = find_target_sites(iter([("g", genome[500:900])]), pack)
+    assert len(gsites) > 0
     guide_longs = np.asarray(gsites.sequences)
 
     ref = DeviceScanner(db, use_pallas=False, chunk=1 << 13, cap=1 << 12)
     expect = [(t.tolist(), g.tolist(), m.tolist()) for t, g, m in ref.scan(guide_longs, 4)]
+    pal = DeviceScanner(db, use_pallas=True, chunk=1 << 13, cap=1 << 12)
+    assert pal.interpret and pal.use_pallas
+    got = [(t.tolist(), g.tolist(), m.tolist()) for t, g, m in pal.scan(guide_longs, 4)]
+    assert got == expect and len(expect) > 0
 
-    with pltpu.force_tpu_interpret_mode():
-        pal = DeviceScanner(db, use_pallas=True, chunk=1 << 13, cap=1 << 12)
-        got = [(t.tolist(), g.tolist(), m.tolist()) for t, g, m in pal.scan(guide_longs, 4)]
-    assert got == expect
+
+def _stage1_plain(codes, guide_oh, L, thr):
+    """The plain stage 1 (make_fused_scan's CPU path) over all columns."""
+    import jax.numpy as jnp
+
+    from flashfry_tpu.ops.scan import stage1_plain
+    return np.asarray(stage1_plain(jnp.asarray(codes),
+                                   jnp.asarray(guide_oh, jnp.bfloat16), L, thr))
+
+
+def _stage1_kernel(codes, guide_oh, pack, max_mm):
+    import jax
+
+    from flashfry_tpu.ops.scan_kernel import guide_block_layout, stage1_pallas
+    L = pack.total_scan_length
+    n_act = len(pack.comparison_mask_positions())
+    f = stage1_pallas(n_act, max_mm, codes.shape[1], guide_oh.shape[0],
+                      interpret=True)
+    return np.asarray(jax.jit(lambda c, g: f(c, guide_block_layout(g, L)))(
+        codes, guide_oh))
+
+
+@pytest.mark.parametrize("pack", [Cas9NGGParameterPack, Cpf1ParameterPack])
+@pytest.mark.parametrize("n_guides", [1, 100, 130])
+def test_stage1_kernel_matches_plain(pack, n_guides):
+    """Per-target hit flags of the kernel equal the plain stage 1 for guide
+    counts that are not a multiple of its guide tile (padding rows never
+    fire), over one and two guide tiles."""
+    from flashfry_tpu.ops.scan import guide_onehot_matrix, plane_codes
+    from flashfry_tpu.ops.scan_kernel import G_TILE
+    rng = np.random.default_rng(n_guides)
+    L = pack.total_scan_length
+    targets = rng.integers(0, 1 << (2 * L), size=3000, dtype=np.uint64)
+    codes = plane_codes(targets, L, 4096)
+    # guides near real targets, so some fire and some do not
+    guides = targets[:n_guides] ^ rng.integers(0, 1 << 8, size=n_guides,
+                                               dtype=np.uint64)
+    oh, _, _ = guide_onehot_matrix(guides, pack, pad_to=G_TILE)
+    n_act = len(pack.comparison_mask_positions())
+    got = _stage1_kernel(codes, oh, pack, 4)
+    want = _stage1_plain(codes, oh, L, n_act - 4)
+    assert got.shape == (4096,)
+    assert np.array_equal(got, want) and want[:3000].any()
+
+
+def test_stage1_kernel_pad_columns_never_fire():
+    """PAD_CODE columns (beyond the real targets) have an all-zero one-hot:
+    even at the loosest threshold (1 match), where every real column fires,
+    no padding column does."""
+    from flashfry_tpu.ops.scan import (PAD_CODE, guide_onehot_matrix,
+                                       plane_codes)
+    pack = Cas9NGGParameterPack
+    L = pack.total_scan_length
+    rng = np.random.default_rng(5)
+    targets = rng.integers(0, 1 << 46, size=1000, dtype=np.uint64)
+    codes = plane_codes(targets, L, 2048)
+    assert (codes[:, 1000:] == PAD_CODE).all()
+    oh, _, _ = guide_onehot_matrix(targets[:64], pack)
+    got = _stage1_kernel(codes, oh, pack, max_mm=99)   # threshold clamps to 1
+    assert got[:1000].all() and not got[1000:].any()
+
+
+@pytest.mark.parametrize("max_mm", [0, 3, 4])
+def test_stage1_kernel_threshold_edge(max_mm):
+    """A target exactly max_mm mismatches from a guide fires; one more
+    mismatch does not."""
+    from flashfry_tpu.ops.scan import guide_onehot_matrix, plane_codes
+    pack = Cas9NGGParameterPack
+    enc = BitEncoding(pack)
+    L = pack.total_scan_length
+    guide = "GAGTCCGAGCAGAAGAAGAAGGG"
+    swap = {"A": "C", "C": "G", "G": "T", "T": "A"}
+
+    def mutate(k):
+        s = list(guide)
+        for i in range(k):          # positions 0..k-1 are all active
+            s[i] = swap[s[i]]
+        return "".join(s)
+
+    targets = enc.encode_batch([mutate(max_mm), mutate(max_mm + 1)])
+    assert list(enc.mismatches(enc.encode_batch([guide])[0], targets)) == \
+        [max_mm, max_mm + 1]
+    codes = plane_codes(targets, L, 256)
+    oh, _, _ = guide_onehot_matrix(enc.encode_batch([guide]), pack)
+    got = _stage1_kernel(codes, oh, pack, max_mm)
+    assert got[0] and not got[1:].any()
+
+
+def test_scan_chunk_rounding():
+    """The kernel path's chunk is a multiple of its T_TILE target tile
+    (rounded down, at least one tile); the plain path keeps any chunk."""
+    from flashfry_tpu.ops.scan import (DEFAULT_CHUNK, PLAIN_CHUNK,
+                                       min_scan_chunk, scan_chunk)
+    from flashfry_tpu.ops.scan_kernel import T_TILE
+    assert scan_chunk(True) == DEFAULT_CHUNK and DEFAULT_CHUNK % T_TILE == 0
+    assert scan_chunk(False) == PLAIN_CHUNK
+    assert scan_chunk(True, 3 * T_TILE + 5) == 3 * T_TILE
+    assert scan_chunk(True, T_TILE // 2) == T_TILE
+    assert scan_chunk(False, 1000) == 1000
+    assert min_scan_chunk(True) == T_TILE
+    db = build_db(random_genome(20000, seed=9), Cas9NGGParameterPack)
+    sc = DeviceScanner(db, use_pallas=True, chunk=5 * T_TILE + 1)
+    assert sc.chunk == 5 * T_TILE and sc.codes.shape[1] % sc.chunk == 0
+
+
+def test_stage1_choice_per_platform():
+    """The GPU runs the kernel, the CPU the plain stage 1, and any other
+    platform is refused rather than silently given the plain path."""
+    from flashfry_tpu.ops.scan import use_stage1_kernel
+    assert use_stage1_kernel("gpu") is True
+    assert use_stage1_kernel("cpu") is False
+    for other in ("rocm", "METAL", "interpreter"):
+        with pytest.raises(ValueError):
+            use_stage1_kernel(other)
+
+
+@pytest.mark.gpu
+def test_stage1_kernel_compiled_on_gpu(gpu_device):
+    """The kernel as compiled for the card (no interpret mode) against the
+    plain stage 1 on the same card, at a real guide-block width."""
+    import jax
+
+    from flashfry_tpu.ops.scan import guide_onehot_matrix, plane_codes
+    from flashfry_tpu.ops.scan_kernel import guide_block_layout, stage1_pallas
+    pack = Cas9NGGParameterPack
+    L = pack.total_scan_length
+    n_act = len(pack.comparison_mask_positions())
+    rng = np.random.default_rng(1)
+    targets = rng.integers(0, 1 << 46, size=1 << 20, dtype=np.uint64)
+    guides = targets[rng.choice(targets.size, 1000, replace=False)]
+    codes = jax.device_put(plane_codes(targets, L), gpu_device)
+    oh, _, _ = guide_onehot_matrix(guides, pack, pad_to=1024)
+    oh = jax.device_put(oh, gpu_device)
+    f = stage1_pallas(n_act, 4, codes.shape[1], oh.shape[0])
+    got = np.asarray(jax.jit(lambda c, g: f(c, guide_block_layout(g, L)))(
+        codes, oh))
+    assert np.array_equal(got, _stage1_plain(codes, oh, L, n_act - 4))
+
+
+def test_memory_budget(monkeypatch):
+    """The code budget is the device's reported limit less the working set;
+    the CPU gets a fixed budget; an accelerator that reports no limit is an
+    error; the environment variable overrides all."""
+    from flashfry_tpu.ops import scan as S
+
+    class FakeDevice:
+        platform = "gpu"
+
+        def __init__(self, stats):
+            self.stats = stats
+
+        def memory_stats(self):
+            return self.stats
+
+    monkeypatch.delenv("FLASHFRY_TPU_HBM_BUDGET_GB", raising=False)
+    assert S.hbm_budget_bytes(123) == S.CPU_CODE_BUDGET
+    monkeypatch.setattr(S, "default_device",
+                        lambda: FakeDevice({"bytes_limit": 60 << 30}))
+    ws = S.scan_working_set_bytes(S.DEFAULT_CHUNK, True)
+    assert S.hbm_budget_bytes(ws) == (60 << 30) - ws
+    assert S.scan_working_set_bytes(S.PLAIN_CHUNK, False) > \
+        S.scan_working_set_bytes(S.PLAIN_CHUNK, True)
+    monkeypatch.setattr(S, "default_device", lambda: FakeDevice(None))
+    with pytest.raises(RuntimeError):
+        S.hbm_budget_bytes(ws)
+    monkeypatch.setenv("FLASHFRY_TPU_HBM_BUDGET_GB", "2")
+    assert S.hbm_budget_bytes(ws) == 2 << 30
+
+
+def test_compile_cache_location(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the only cache: nothing is
+    set in code. Otherwise the cache is a fixed path inside the checkout."""
+    import os
+
+    import jax
+
+    from flashfry_tpu.ops import scan as S
+    calls = []
+    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+    monkeypatch.delenv("FLASHFRY_TPU_NO_COMPILE_CACHE", raising=False)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere")
+    monkeypatch.setattr(S, "_cache_enabled", False)
+    S.enable_compilation_cache()
+    assert calls == []
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    monkeypatch.setattr(S, "_cache_enabled", False)
+    S.enable_compilation_cache()
+    assert calls == [("jax_compilation_cache_dir", S.COMPILE_CACHE_DIR)]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert os.path.dirname(S.COMPILE_CACHE_DIR) == root
+
+
+def test_host_fallback_is_logged(monkeypatch, caplog):
+    """A scan that exhausts its cap retries runs the exact host scan and
+    says so in a warning (chip_smoke.py counts these and requires 0)."""
+    import logging
+
+    from flashfry_tpu.ops import scan as S
+    genome = random_genome(30000, seed=23)
+    db = build_db(genome, Cas9NGGParameterPack)
+    guides = np.asarray(find_target_sites(iter([("g", genome[:2000])]),
+                                          Cas9NGGParameterPack).sequences)
+    monkeypatch.setattr(S, "MAX_RETRIES", 0)
+    sc = DeviceScanner(db, use_pallas=False, chunk=1 << 13, cap=2)
+    with caplog.at_level(logging.WARNING, logger="flashfry_tpu"):
+        n = sum(len(t) for t, _, _ in sc.scan(guides, 4))
+    assert n > 0
+    assert sum("exact host fallback" in r.getMessage()
+               for r in caplog.records) == 1
 
 
 def test_fused_overflow_falls_back_to_chunked():
@@ -409,3 +622,37 @@ def test_max_guide_block_env(monkeypatch):
                       ("64", 128), ("8192", 8192)):
         monkeypatch.setenv("FLASHFRY_TPU_MAX_BLOCK", raw)
         assert max_guide_block() == want, raw
+
+
+def test_auto_backend_does_not_hide_a_broken_runtime(monkeypatch):
+    """--backend auto runs the numpy oracle only on a CPU-only runtime; a
+    runtime that cannot report its platform raises instead of silently
+    falling back to the host scan."""
+    from flashfry_tpu import engine
+    from flashfry_tpu.ops import scan as S
+    genome = random_genome(20000, seed=4)
+    db = build_db(genome, Cas9NGGParameterPack)
+    gsites = find_target_sites(iter([("g", genome[:400])]),
+                               Cas9NGGParameterPack)
+    assert not engine._on_accelerator()          # this suite runs on the CPU
+
+    def broken():
+        raise RuntimeError("backend failed to initialize")
+
+    monkeypatch.setattr(S, "default_device", broken)
+    with pytest.raises(RuntimeError, match="failed to initialize"):
+        engine.discover(db, gsites, max_mismatch=3, backend="auto")
+
+
+def test_brute_force_hits_chunks_match_whole():
+    """The chunked brute-force oracle equals one unchunked comparison."""
+    from flashfry_tpu.engine import brute_force_hits
+    genome = random_genome(40000, seed=6)
+    db = build_db(genome, Cas9NGGParameterPack)
+    enc = db.bit_encoding()
+    g = int(db.targets[db.num_targets // 3])
+    idx, mm = brute_force_hits(db, g, 4, chunk=1000)
+    whole = enc.mismatches_cross(np.asarray([g], np.uint64), db.targets)[0]
+    want = np.nonzero(whole <= 4)[0]
+    assert np.array_equal(idx, want) and np.array_equal(mm, whole[want])
+    assert idx.size >= 1

@@ -36,7 +36,6 @@ def main():
     np.asarray(jnp.zeros((), jnp.float32) + 1)
     platform = default_platform()
     bench.log("platform %s, init %.1fs" % (platform, time.time() - t0))
-    bench.start_keepalive()
 
     t0 = time.time()
     scanner = DeviceScanner(db)

@@ -1,4 +1,4 @@
-"""Sweep _packed_nonzero's tile width T on the real TPU for the two shapes
+"""Sweep _packed_nonzero's tile width T on the accelerator for the two shapes
 the fused scan uses: (8.4M mask, cap 4096) and (cap*G=4.2M mask, cap 16384)."""
 import os
 import sys
